@@ -11,7 +11,7 @@ from __future__ import annotations
 import copy
 from typing import Any
 
-import yaml
+from . import yaml_io
 
 _VALID_SCALARS = (int, float, bool, str, type(None))
 
@@ -25,7 +25,7 @@ def _coerce(new: Any, old: Any, key: str) -> Any:
     if old is None or new is None:
         return new
     if isinstance(new, str) and not isinstance(old, str):
-        parsed = yaml.safe_load(new)
+        parsed = yaml_io.safe_load(new)
         if isinstance(parsed, str):
             # yaml 1.1 misses floats like "1e-3"; try numeric parse
             try:
@@ -150,7 +150,7 @@ class CN(dict):
 
     def merge_from_file(self, path: str) -> None:
         with open(path) as f:
-            data = yaml.safe_load(f)
+            data = yaml_io.safe_load(f)
         if data is None:
             return
         self.merge_from_other(data)
@@ -173,7 +173,7 @@ class CN(dict):
                 node = node[p]
             leaf = parts[-1]
             old = node.get(leaf, None)
-            new = yaml.safe_load(value) if isinstance(value, str) else value
+            new = yaml_io.safe_load(value) if isinstance(value, str) else value
             node[leaf] = self._convert(_coerce(new, old, key) if leaf in node else new)
 
     # -- misc ---------------------------------------------------------------
@@ -192,7 +192,7 @@ class CN(dict):
         return out
 
     def dump(self) -> str:
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+        return yaml_io.safe_dump(self.to_dict())
 
     def __deepcopy__(self, memo):
         new = CN()

@@ -26,6 +26,7 @@ import subprocess
 
 import numpy as np
 
+from . import yaml_io
 from .cfg_node import CN
 
 
@@ -170,8 +171,7 @@ def parse_cfg(cfg: CN, args) -> None:
 def load_cfg_tree(cfg_file: str, base: CN) -> CN:
     """Merge ``cfg_file`` (with recursive ``parent_cfg``) into ``base``."""
     with open(cfg_file) as f:
-        import yaml
-        current = yaml.safe_load(f) or {}
+        current = yaml_io.safe_load(f) or {}
     if "parent_cfg" in current:
         base = load_cfg_tree(current["parent_cfg"], base)
     base.merge_from_other(current)

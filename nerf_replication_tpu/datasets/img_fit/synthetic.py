@@ -17,9 +17,9 @@ import json
 import os
 
 import numpy as np
-from PIL import Image
 
 from ...registry import register
+from ...utils.png import read_png, resize
 
 
 class Dataset:
@@ -40,16 +40,14 @@ class Dataset:
         rel = rel[2:] if rel.startswith("./") else rel
         img_path = os.path.join(self.data_root, rel + ".png")
 
-        img = np.asarray(Image.open(img_path), dtype=np.float32) / 255.0
+        img = read_png(img_path).astype(np.float32) / 255.0
         if img.shape[-1] == 4:
             img = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
         if self.input_ratio != 1.0:
             H, W = img.shape[:2]
             new = (int(W * self.input_ratio), int(H * self.input_ratio))
-            img = np.asarray(
-                Image.fromarray((img * 255).astype(np.uint8)).resize(
-                    new, Image.BOX),
-                dtype=np.float32) / 255.0
+            img = resize((img * 255).astype(np.uint8), new,
+                         "box").astype(np.float32) / 255.0
         self.img = img.astype(np.float32)
 
         H, W = img.shape[:2]

@@ -7,7 +7,7 @@ shuffled / distributed, make_dataset.py:37-44), batch sampler (default /
 image_size, 47-66), ``IterationBasedBatchSampler`` wrap when
 ``max_iter != -1`` (64-65) and a collator.
 
-TPU-native difference: no worker processes / pin_memory — the loader is
+Difference: no worker processes / pin_memory — the loader is
 a plain iterator of numpy batches (host RAM), and the training hot path
 bypasses it entirely via the device-resident pipeline
 (``datasets.pipeline``). Worker seeding (make_dataset.py:69-70,

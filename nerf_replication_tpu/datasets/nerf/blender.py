@@ -31,16 +31,13 @@ import json
 import os
 
 import numpy as np
-from PIL import Image
 
 from ...registry import register
+from ...utils.png import read_png, resize
 
 
-def _load_png(path: str, size: tuple[int, int] | None, resample) -> np.ndarray:
-    img = Image.open(path)
-    if size is not None and img.size != size:
-        img = img.resize(size, resample)
-    return np.asarray(img, dtype=np.float32)
+def _load_png(path: str, size: tuple[int, int], resample: str) -> np.ndarray:
+    return resize(read_png(path), size, resample).astype(np.float32)
 
 
 class Dataset:
@@ -84,7 +81,7 @@ class Dataset:
         self.alphas = []       # (H, W) float32 GT coverage (when RGBA)
         for frame in frames:
             img_path = os.path.join(self.scene_root, frame["file_path"] + ".png")
-            img = _load_png(img_path, size, Image.BILINEAR) / 255.0
+            img = _load_png(img_path, size, "bilinear") / 255.0
             if img.ndim == 2:
                 img = np.stack([img] * 3, axis=-1)
             if img.shape[-1] == 4:
@@ -104,10 +101,10 @@ class Dataset:
                     self.scene_root, frame["file_path"] + "_normal_0001.png")
                 if os.path.exists(dpath):
                     self.depths.append(
-                        _load_png(dpath, size, Image.NEAREST))
+                        _load_png(dpath, size, "nearest"))
                 if os.path.exists(npath):
                     self.normals.append(
-                        _load_png(npath, size, Image.BILINEAR) / 255.0)
+                        _load_png(npath, size, "bilinear") / 255.0)
 
     # -- intrinsics ----------------------------------------------------------
     @property

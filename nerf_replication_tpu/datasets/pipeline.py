@@ -1,9 +1,9 @@
-"""Device-resident training ray pipeline — the TPU-native hot path.
+"""Device-resident training ray pipeline — the training hot path.
 
 The reference feeds training through a torch DataLoader with 4 worker
 processes + per-batch ``to_cuda`` host->device copies
-(src/datasets/make_dataset.py:73-100, trainer.py:51). On TPU we instead
-keep the whole split resident in HBM (lego: 100×800×800×3 f32 ≈ 730 MB)
+(src/datasets/make_dataset.py:73-100, trainer.py:51). Here the whole
+split stays resident in device memory (lego: 100×800×800×3 uint8 ≈ 192 MB)
 and draw each 1024-ray batch *inside the jitted train step* from a
 threefry key: zero host->device transfer per step, fully deterministic,
 and shardable over the data mesh axis.
@@ -67,7 +67,8 @@ class DeviceRayPipeline:
              -jnp.ones_like(u)],
             axis=-1,
         )
-        rays_d = dirs @ pose[:3, :3].T
+        rays_d = jnp.matmul(dirs, pose[:3, :3].T,
+                            precision=jax.lax.Precision.HIGHEST)
         rays_d = rays_d / jnp.linalg.norm(rays_d, axis=-1, keepdims=True)
         rays_o = jnp.broadcast_to(pose[:3, 3], rays_d.shape)
         return rays_o, rays_d
@@ -77,7 +78,7 @@ class DeviceRayPipeline:
 
         Closing over the image stack instead would embed it as an HLO
         constant — at lego scale that is a multi-hundred-MB literal the
-        (remote) compiler must swallow per program. Callers thread this
+        compiler must swallow per program. Callers thread this
         dict into ``sample(..., data=...)``."""
         d = {"images": self.images, "poses": self.poses}
         if self.alphas is not None:
@@ -125,7 +126,8 @@ class DeviceRayPipeline:
                  -jnp.ones_like(u, dtype=jnp.float32)],
                 axis=-1,
             )
-            rays_d = jnp.einsum("nij,nj->ni", pose[:, :3, :3], dirs)
+            rays_d = jnp.einsum("nij,nj->ni", pose[:, :3, :3], dirs,
+                                precision=jax.lax.Precision.HIGHEST)
             rays_d = rays_d / jnp.linalg.norm(rays_d, axis=-1, keepdims=True)
             rays_o = pose[:, :3, 3]
         else:
@@ -151,6 +153,23 @@ class DeviceRayPipeline:
         return self._pixel_rays(pose, us.ravel(), vs.ravel())
 
 
+def make_train_pipeline(cfg, dataset) -> DeviceRayPipeline:
+    """The training pipeline of ``cfg.task_arg`` over a dataset that
+    exposes ``as_arrays`` (and ``alpha_arrays`` for random backgrounds)."""
+    images, poses, K = dataset.as_arrays()
+    ta = cfg.task_arg
+    alphas = None
+    if bool(ta.get("random_bkgd", False)) and hasattr(dataset, "alpha_arrays"):
+        alphas = dataset.alpha_arrays()
+    return DeviceRayPipeline(
+        images, poses, K,
+        n_rays=int(ta.get("N_rays", 1024)),
+        precrop_iters=int(ta.get("precrop_iters", 0)),
+        precrop_frac=float(ta.get("precrop_frac", 0.5)),
+        alphas=alphas,
+    )
+
+
 def rays_for_camera(pose, H, W, focal, cx=None, cy=None):
     """Standalone full-image ray grid (world frame, normalised dirs)."""
     cx = W / 2.0 if cx is None else cx
@@ -161,7 +180,8 @@ def rays_for_camera(pose, H, W, focal, cx=None, cy=None):
     u, v = us.ravel(), vs.ravel()
     dirs = jnp.stack([(u - cx) / focal, -(v - cy) / focal, -jnp.ones_like(u)], -1)
     pose = jnp.asarray(pose)
-    rays_d = dirs @ pose[:3, :3].T
+    rays_d = jnp.matmul(dirs, pose[:3, :3].T,
+                        precision=jax.lax.Precision.HIGHEST)
     rays_d = rays_d / jnp.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = jnp.broadcast_to(pose[:3, 3], rays_d.shape)
     return rays_o, rays_d

@@ -1,5 +1,6 @@
 """img_fit evaluator (parity: src/evaluators/img_fit.py:14-40):
-float PSNR, side-by-side gt/pred jpg, metrics.json dump."""
+float PSNR, side-by-side gt/pred image (PNG here; the reference writes
+a jpg), metrics.json dump."""
 
 from __future__ import annotations
 
@@ -28,11 +29,11 @@ class Evaluator:
         val = psnr(gt, pred, data_range=1.0)
         self.psnrs.append(val)
         if self.result_dir:
-            from PIL import Image
+            from ..utils.png import write_png
 
             side = np.concatenate([gt, pred], axis=1)
-            Image.fromarray((np.clip(side, 0, 1) * 255).astype(np.uint8)).save(
-                os.path.join(self.result_dir, "vis", "res.jpg"))
+            write_png(os.path.join(self.result_dir, "vis", "res.png"),
+                      (np.clip(side, 0, 1) * 255).astype(np.uint8))
         return {"psnr": val}
 
     def summarize(self) -> dict:

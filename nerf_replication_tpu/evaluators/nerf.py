@@ -31,13 +31,13 @@ class Evaluator:
     def _dump(self, img_pred, img_gt, view_id: int):
         if not self.result_dir:
             return
-        from PIL import Image
+        from ..utils.png import write_png
 
         os.makedirs(self.result_dir, exist_ok=True)
         for tag, img in (("pred", img_pred), ("gt", img_gt)):
-            Image.fromarray(
-                (np.clip(img, 0, 1) * 255).astype(np.uint8)
-            ).save(os.path.join(self.result_dir, f"view{view_id:03d}_{tag}.png"))
+            write_png(
+                os.path.join(self.result_dir, f"view{view_id:03d}_{tag}.png"),
+                (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
     def evaluate(self, output, batch) -> dict:
         """output: (rgb_pred, depth_pred) tuple or dict with 'rgb';

@@ -1,7 +1,7 @@
 """Encoder dispatch.
 
 Parity with reference src/models/encoding/__init__.py:6-86 ``get_encoder``:
-the same config ``type`` names dispatch to TPU-native encoders. The
+the same config ``type`` names dispatch to this package's encoders. The
 reference's ``cuda_*`` names are kept as aliases of the Pallas/XLA
 implementations (there is no CUDA here). Notes on reference quirks:
 

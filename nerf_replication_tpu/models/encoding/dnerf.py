@@ -15,15 +15,15 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ..module import Dense, Module
 from .freq import freq_encode
 from .hashgrid import HashGridEncoder, normalize_to_unit
 
 
-class DNeRFEncoder(nn.Module):
+class DNeRFEncoder(Module):
     variant: str = "dnerf"
     freq: int = 10
     time_freq: int = 10
@@ -75,8 +75,8 @@ class DNeRFEncoder(nn.Module):
                 for i in range(3)
             ]
         else:
-            self.time_mlp = [nn.Dense(self.width) for _ in range(self.depth)]
-            self.time_out = nn.Dense(3)
+            self.time_mlp = [Dense(self.width) for _ in range(self.depth)]
+            self.time_out = Dense(3)
 
     # -- dnerf (freq MLP) ------------------------------------------------------
     def _mlp_delta(self, xyz, t):
@@ -84,7 +84,7 @@ class DNeRFEncoder(nn.Module):
             [freq_encode(xyz, self.freq), freq_encode(t, self.freq)], axis=-1)
         h = enc
         for i, layer in enumerate(self.time_mlp):
-            h = nn.relu(layer(h))
+            h = jax.nn.relu(layer(h))
             if i in self.skips:
                 h = jnp.concatenate([enc, h], axis=-1)
         return self.time_out(h)

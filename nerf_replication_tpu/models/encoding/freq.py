@@ -4,8 +4,8 @@ Capability parity with reference src/models/encoding/freq.py:2-33:
 identity passthrough + [sin, cos] at log-spaced bands 2^0 .. 2^(freq-1).
 Output dim = input_dim * (1 + 2*freq).
 
-Pure function + a thin param-free module wrapper; on TPU this is a single
-fused VPU op chain, no kernel needed.
+Pure function + a thin param-free module wrapper; XLA fuses it into one
+elementwise op chain, no kernel needed.
 """
 
 from __future__ import annotations

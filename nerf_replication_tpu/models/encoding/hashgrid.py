@@ -1,4 +1,4 @@
-"""Multi-resolution hash-grid encoders (instant-ngp style), TPU-native.
+"""Multi-resolution hash-grid encoders (instant-ngp style).
 
 Capability parity with the reference's CUDA hash encoder
 (src/models/encoding/hashencoder/src/hashencoder.cu: prime-XOR spatial
@@ -9,15 +9,15 @@ wrappers (hashencoder/hashgrid.py: HashEncoder :121-219, TriPlane
 :306-318, HashEncoderCoef :321-351), plus the pure-tensor fallbacks
 (src/models/encoding/hashgrid.py:12-134, triplane.py:8-102).
 
-TPU-first design: the forward is ONE fused gather over all levels —
+The vertex-exact ("xla") forward is ONE fused gather over all levels —
 corner indices carry per-level global offsets into the concatenated
 table, so the 2^D-corner interpolation for every level is a single
 ``jnp.take`` + weighted sum (XLA fuses the weighting). The backward is
-a ``custom_vjp``: instead of XLA's serializing non-unique scatter-add
-(measured ~8x the forward cost on v5e), gradient rows are sorted by
-table index and segment-summed — sort + segmented reduction is the
-deterministic TPU analog of the CUDA kernel's ``atomicAdd``
-(hashencoder.cu:254-269). Input gradients (needed when upstream modules
+a ``custom_vjp`` that either scatter-adds the gradient rows or sorts
+them by table index and segment-sums them — a deterministic form of
+the CUDA kernel's ``atomicAdd`` (hashencoder.cu:254-269). The "brick"
+backend is the bricked encode of ``ops/pallas/hashgrid_kernel.py``.
+Input gradients (needed when upstream modules
 warp the query points, e.g. Motion2D's deformation MLP) use the
 analytic interpolation-weight derivative, matching the CUDA
 ``kernel_input_backward`` (hashencoder.cu:275-297), and are gated by
@@ -36,10 +36,11 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..module import Dense, Module
 
 EPS = 1e-6
 # instant-ngp hash primes (hashencoder.cu:37-52); first dim un-multiplied
@@ -90,7 +91,7 @@ def _corners(D: int) -> np.ndarray:
 
 def _indices_weights(layout, x):
     """x (N, D) in [0,1] -> global table rows (N, L*C) int32 and
-    interpolation weights (N, L*C) f32. One pass of cheap VPU math for
+    interpolation weights (N, L*C) f32. One pass of cheap elementwise math for
     ALL levels (the gather itself happens once, in the caller)."""
     scales, offsets, use_hash, table_size, D, F, *_ = layout
     corners = jnp.asarray(_corners(D))                  # (C, D)
@@ -132,7 +133,7 @@ def _encode_fwd_impl(layout, table, x):
 
 @partial(jax.custom_vjp, nondiff_argnums=(0,))
 def hash_encode(layout, table, x):
-    """Fused multi-level hash-grid encode with a TPU-fast backward."""
+    """Fused multi-level hash-grid encode with a custom backward."""
     return _encode_fwd_impl(layout, table, x)
 
 
@@ -201,15 +202,14 @@ def _encode_bwd(layout, res, g):
 hash_encode.defvjp(_encode_fwd, _encode_bwd)
 
 
-class HashGridEncoder(nn.Module):
+class HashGridEncoder(Module):
     """D-dimensional multi-resolution hash grid, D in {2, 3, 4}.
 
     ``backend="xla"`` is the vertex-exact instant-ngp formulation;
     ``backend="brick"`` (D=3, F=2, input_grad=False only) switches to
-    the TPU-native bricked Pallas kernels (ops/pallas/hashgrid_kernel),
-    which hash 4^3-cell bricks instead of vertices and run ~50x faster
-    on TPU. The two backends have different parameter shapes and are
-    not checkpoint-compatible with each other.
+    the bricked encode (ops/pallas/hashgrid_kernel), which hashes 4^3-cell
+    bricks instead of vertices. The two backends have different
+    parameter shapes and are not checkpoint-compatible with each other.
     """
 
     input_dim: int = 3
@@ -223,12 +223,12 @@ class HashGridEncoder(nn.Module):
     # True when upstream modules need d(out)/dx (warped/learned query
     # points, e.g. Motion2D); plain point encoders skip the extra gather
     input_grad: bool = True
-    # sort+segment-sum backward (TPU-fast) vs plain scatter-add
+    # sort+segment-sum backward (deterministic) vs plain scatter-add
     sorted_bwd: bool = True
     # gather dtype: bfloat16 halves the random-access HBM traffic; params
     # stay float32 for the optimizer
     compute_dtype: str = "float32"
-    # "xla" (vertex-exact) or "brick" (Pallas bricked kernels)
+    # "xla" (vertex-exact) or "brick" (bricked table)
     backend: str = "xla"
     log2_bricks: int = 12     # brick-table cap per level (brick backend)
 
@@ -315,7 +315,7 @@ class HashGridEncoder(nn.Module):
 
         if self.backend == "brick":
             from nerf_replication_tpu.ops.pallas import hashgrid_kernel as hk
-            out = hk.brick_hash_encode(self._brick_layout, self.table, x)
+            out = hk.brick_encode(self._brick_layout, self.table, x)
             return out.reshape(*shape, self.output_dim)
 
         layout = (tuple(self._scales), tuple(self._offsets),
@@ -328,7 +328,7 @@ class HashGridEncoder(nn.Module):
         return out.reshape(*shape, self.output_dim)
 
 
-class TriPlaneEncoder(nn.Module):
+class TriPlaneEncoder(Module):
     """Three 2-D grids over (xy, yz, xz), concatenated (reference
     TriPlane, hashencoder/hashgrid.py:222-238 / triplane.py:86-102)."""
 
@@ -366,7 +366,7 @@ class TriPlaneEncoder(nn.Module):
         ], axis=-1)
 
 
-class Motion2DEncoder(nn.Module):
+class Motion2DEncoder(Module):
     """Triplane + time-conditioned deformation MLP (reference Motion2d,
     hashencoder/hashgrid.py:241-286). The reference's python-level
     ``if t != 0`` branch becomes a ``jnp.where`` blend."""
@@ -393,8 +393,8 @@ class Motion2DEncoder(nn.Module):
         self.xy_plane = HashGridEncoder(**kw)
         self.yz_plane = HashGridEncoder(**kw)
         self.xz_plane = HashGridEncoder(**kw)
-        self.mlp = [nn.Dense(self.mlp_width) for _ in range(self.mlp_depth)]
-        self.mlp_out = nn.Dense(3)
+        self.mlp = [Dense(self.mlp_width) for _ in range(self.mlp_depth)]
+        self.mlp_out = Dense(3)
 
     def __call__(self, xyzt, bounds=None):
         b = bounds if bounds is not None else (self.bounds or None)
@@ -404,8 +404,8 @@ class Motion2DEncoder(nn.Module):
         t = xyzt[..., 3:] / max(self.num_frames - 1, 1)
         h = jnp.concatenate([xyz, t], axis=-1)
         for layer in self.mlp:
-            h = nn.relu(layer(h))
-        delta = nn.sigmoid(self.mlp_out(h))
+            h = jax.nn.relu(layer(h))
+        delta = jax.nn.sigmoid(self.mlp_out(h))
         warped = jnp.clip(xyz + 2.0 * delta - 1.0, 0.0, 1.0)
         xyz_eff = jnp.where(t > 0, warped, xyz)
         return jnp.concatenate([
@@ -415,7 +415,7 @@ class Motion2DEncoder(nn.Module):
         ], axis=-1)
 
 
-class HashLatentEncoder(nn.Module):
+class HashLatentEncoder(Module):
     """Hash(xyz) + per-frame latent code concat (reference HashLatent,
     hashencoder/hashgrid.py:289-303)."""
 
@@ -459,7 +459,7 @@ class HashLatentEncoder(nn.Module):
             [self.grid(xyz, normalize=False), self.latent_t[t_idx]], axis=-1)
 
 
-class HashGrid4DEncoder(nn.Module):
+class HashGrid4DEncoder(Module):
     """4-D (xyz + normalized t) hash grid (reference HashEncoder4d,
     hashencoder/hashgrid.py:306-318)."""
 
@@ -494,7 +494,7 @@ class HashGrid4DEncoder(nn.Module):
         return self.grid(jnp.concatenate([xyz, t], axis=-1), normalize=False)
 
 
-class HashCoefEncoder(nn.Module):
+class HashCoefEncoder(Module):
     """Coefficient-mixed hash bases (reference HashEncoderCoef,
     hashencoder/hashgrid.py:321-351): K 3-D basis grids mixed by a
     softmax over a 4-D coefficient grid + MLP."""
@@ -527,8 +527,8 @@ class HashCoefEncoder(nn.Module):
         coef_kw["input_dim"] = 4
         coef_kw["log2_hashmap_size"] = 20
         self.coefs = HashGridEncoder(**coef_kw)
-        self.coef_mlp_hidden = nn.Dense(64)
-        self.coef_mlp_out = nn.Dense(self.basis_num)
+        self.coef_mlp_hidden = Dense(64)
+        self.coef_mlp_out = Dense(self.basis_num)
 
     def __call__(self, xyzt, bounds=None):
         b = bounds if bounds is not None else (self.bounds or None)
@@ -537,7 +537,7 @@ class HashCoefEncoder(nn.Module):
             xyz = normalize_to_unit(xyz, b)
         t = xyzt[..., 3:] / max(self.num_frames, 1)
         coef_in = jnp.concatenate([xyz, t], axis=-1)
-        h = nn.relu(self.coef_mlp_hidden(self.coefs(coef_in, normalize=False)))
+        h = jax.nn.relu(self.coef_mlp_hidden(self.coefs(coef_in, normalize=False)))
         coefs = jax.nn.softmax(self.coef_mlp_out(h), axis=-1)
         embs = jnp.stack(
             [g(xyz, normalize=False) for g in self.basis], axis=-2)  # (N,K,E)

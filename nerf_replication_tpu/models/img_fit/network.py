@@ -3,38 +3,39 @@
 Capability parity with reference src/models/img_fit/network.py:8-55:
 freq-encoded uv through a D×W relu MLP with a sigmoid RGB head;
 ``forward(batch)`` calling convention returning ``{"rgb": ...}``. The
-reference's chunked ``batchify`` (network.py:40-50) is unnecessary on
-TPU — one matmul batch.
+reference's chunked ``batchify`` (network.py:40-50) is unnecessary under
+XLA — one matmul batch.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from ..encoding import get_encoder
+from ..module import Dense, Module
 
 
-class ImgFitMLP(nn.Module):
+class ImgFitMLP(Module):
     depth: int = 4
     width: int = 128
     uv_encoder: Any = None
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
 
-    @nn.compact
+    def setup(self):
+        self.backbone = [Dense(self.width, dtype=self.dtype)
+                         for _ in range(self.depth)]
+        self.output = Dense(3, dtype=self.dtype)
+
     def __call__(self, batch: dict) -> dict:
         uv = jnp.asarray(batch["uv"])
         shape = uv.shape[:-1]
         x = self.uv_encoder(uv.reshape(-1, uv.shape[-1])).astype(self.dtype)
-        for i in range(self.depth):
-            x = nn.relu(
-                nn.Dense(self.width, dtype=self.dtype,
-                         param_dtype=jnp.float32, name=f"backbone_{i}")(x))
-        rgb = nn.sigmoid(
-            nn.Dense(3, dtype=self.dtype, param_dtype=jnp.float32,
-                     name="output")(x))
+        for layer in self.backbone:
+            x = jax.nn.relu(layer(x))
+        rgb = jax.nn.sigmoid(self.output(x))
         return {"rgb": rgb.astype(jnp.float32).reshape(*shape, 3)}
 
 

@@ -1,4 +1,4 @@
-"""NeRF model (coarse + fine MLP), Flax.
+"""NeRF model (coarse + fine MLP).
 
 Capability parity with reference src/models/nerf/network.py:
 
@@ -10,30 +10,30 @@ Capability parity with reference src/models/nerf/network.py:
 * :class:`Network` — owns coarse+fine MLPs and the xyz/dir encoders from
   config (reference Network 126-161).
 
-TPU-first differences: no ``batchify`` chunking (network.py:163-171) —
-points are evaluated as one big (N, C) matmul batch that XLA tiles onto
-the MXU; matmuls run in a configurable compute dtype (default bfloat16)
-with float32 params and float32 outputs.
+Differences: no ``batchify`` chunking (network.py:163-171) — points are
+evaluated as one big (N, C) matmul batch; matmuls run in a configurable
+compute dtype (default bfloat16) with float32 params and float32 outputs.
 """
 
 from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from ...config.cfg_node import CN
 from ..encoding import get_encoder
+from ..module import Dense, Module, constant_init
 
 
-class NeRFMLP(nn.Module):
+class NeRFMLP(Module):
     depth: int = 8
     width: int = 256
     view_depth: int = 1
     skips: Sequence[int] = (4,)
     use_viewdirs: bool = True
-    dtype: jnp.dtype = jnp.bfloat16
+    dtype: Any = jnp.bfloat16
     # initial density-head bias. softplus(0)=0.69 makes a fresh field
     # nearly opaque (acc~1 on every ray), which kills the gradient of
     # any background-dependent loss term (random_bkgd training would
@@ -41,38 +41,42 @@ class NeRFMLP(nn.Module):
     # init (e.g. -4 -> sigma_0=0.018) keeps rays transparent at start.
     density_bias: float = 0.0
 
-    @nn.compact
+    def setup(self):
+        # parameters are created on first call, so only the layers of
+        # the configured branch (viewdirs or not) enter the tree
+        dense = lambda w, **kw: Dense(w, dtype=self.dtype, **kw)
+        self.pts = [dense(self.width) for _ in range(self.depth)]
+        self.alpha = dense(1, bias_init=constant_init(self.density_bias))
+        self.feature = dense(self.width)
+        self.views = [dense(self.width // 2) for _ in range(self.view_depth)]
+        self.rgb = dense(3)
+        self.output = dense(4)
+
     def __call__(self, pts_feat: jnp.ndarray, view_feat: jnp.ndarray | None = None):
         """(N, C_pts), (N, C_dir) -> raw (N, 4) = [rgb, sigma] (float32)."""
-        dense = lambda w, name: nn.Dense(
-            w, dtype=self.dtype, param_dtype=jnp.float32, name=name
-        )
         x = pts_feat.astype(self.dtype)
         h = x
-        for i in range(self.depth):
-            h = nn.relu(dense(self.width, f"pts_{i}")(h))
+        for i, layer in enumerate(self.pts):
+            h = jax.nn.relu(layer(h))
             # reference concatenates the encoded input after layer i when
             # i is in skips (network.py:53-57)
             if i in self.skips:
                 h = jnp.concatenate([x, h], axis=-1)
 
         if self.use_viewdirs:
-            sigma = nn.Dense(
-                1, dtype=self.dtype, param_dtype=jnp.float32,
-                bias_init=nn.initializers.constant(self.density_bias),
-                name="alpha")(h)
-            feat = dense(self.width, "feature")(h)
+            sigma = self.alpha(h)
+            feat = self.feature(h)
             h = jnp.concatenate([feat, view_feat.astype(self.dtype)], axis=-1)
-            for i in range(self.view_depth):
-                h = nn.relu(dense(self.width // 2, f"views_{i}")(h))
-            rgb = dense(3, "rgb")(h)
+            for layer in self.views:
+                h = jax.nn.relu(layer(h))
+            rgb = self.rgb(h)
             raw = jnp.concatenate([rgb, sigma], axis=-1)
         else:
-            raw = dense(4, "output")(h)
+            raw = self.output(h)
         return raw.astype(jnp.float32)
 
 
-class Network(nn.Module):
+class Network(Module):
     """Coarse + fine NeRF with config-selected encoders.
 
     ``model`` selects the head: "" / "coarse" for coarse (reference uses
@@ -109,7 +113,7 @@ class Network(nn.Module):
 
 
 def load_weights_from_keras(weights: list, depth: int = 8):
-    """Original-NeRF TF/Keras weight list -> one branch's Flax params.
+    """Original-NeRF TF/Keras weight list -> one branch's params.
 
     Capability parity with reference network.py:76-123: the list layout is
     [pts_0 W, pts_0 b, ..., pts_{D-1} W, b, feature W, b, views_0 W, b,

@@ -4,8 +4,8 @@ The reference's CUDA hash encoder exists to serve instant-ngp-style
 models whose *renderer* marches rays through an occupancy bitfield with
 early termination (hashencoder.cu:78-197 is the encode half; the
 raymarch half lives upstream in instant-ngp). This module is the
-TPU-native whole: static-shape compaction instead of per-ray dynamic
-marching, one jitted program per frame.
+whole: static-shape compaction instead of per-ray dynamic marching, one
+jitted program per frame.
 
 Pipeline (all shapes compile-time static):
 
@@ -33,8 +33,8 @@ hard scene it is NOT better than spending the same extra samples in
 one round (24,10,8+8 → 0.27 dB drop vs 32,14,12+0 → 0.00), so the
 default stays 0; the knob remains for fields with razor-thin softplus
 shells where one round cannot bracket the surface. (The ~35 dB
-fast-vs-dense error floor that motivated it was actually the bf16
-ray-direction matmul, fixed above — see scripts/diag_ngp_gap.py.)
+fast-vs-dense error floor that motivated it was actually a
+reduced-precision ray-direction matmul, now pinned to f32.)
 
 Sample counts: active rays pay ``n_coarse + n_fine`` MLP/encode points
 (vs ``N_samples + (N_samples + N_importance)`` on the dense path — 3-6x
@@ -64,112 +64,32 @@ import jax.numpy as jnp
 import numpy as np
 
 from ....ops.occupancy import points_occupied, ray_spans
-from ....ops.ray_ops import density_activation, sample_pdf
+from ....ops.ray_ops import camera_rays, density_activation, sample_pdf
 from .volume_renderer import RenderSettings
 
 
-def make_ngp_eval_apply(net, params, mxu_max_rows: int = 512,
-                        blk: int = 1024):
-    """Eval-path ``apply_fn(params, pts, viewdirs, model)`` for a
-    brick-backend NGP network: routes the hash encode through the
-    forward-only eval kernel (ops/pallas/eval_encode.py) and keeps the
-    MLP/SH in XLA. Returns None when the network doesn't match
-    (caller falls back to ``net.apply``). Weights are baked at call
-    time; the returned fn ignores its params argument."""
-    from ....models.encoding.hashgrid import (
-        HashGridEncoder,
-        normalize_to_unit,
-    )
-    from ....ops.pallas import hashgrid_kernel as hk
-    from ....ops.pallas.eval_encode import brick_encode_eval, pack_eval_table
-
-    import os as _os
-
-    from ....ops.pallas.fused_ngp import (
-        extract_mlp_weights,
-        fused_ngp_eval,
-    )
-
-    enc = net.xyz_encoder
-    if not isinstance(enc, HashGridEncoder) or enc.backend != "brick":
-        return None
-    layout = hk.make_brick_layout(
-        enc.n_levels, enc.base_resolution, enc.finest_resolution,
-        log2_bricks=enc.log2_bricks, per_level_scale=enc.per_level_scale)
-    table = params["params"]["xyz_encoder"]["table"]
-    packed = pack_eval_table(jnp.asarray(table))
-    bounds = tuple(enc.bounds) if enc.bounds else None
-    dir_enc = net.dir_encoder
-
-    # NGP_EVAL_XLA=1 routes the encode through the pure-XLA brick oracle
-    # (hashgrid_kernel.brick_encode_reference) instead of the Pallas
-    # kernels — bit-identical brick semantics, fast on CPU (interpret
-    # mode is not), used by the CPU gate-repro harness
-    # (scripts/gate_repro.py) and any off-TPU validation run.
-    oracle = _os.environ.get("NGP_EVAL_XLA", "0") == "1"
-
-    # fully-fused encode+MLP kernel (ops/pallas/fused_ngp.py) when the
-    # network fits its supported shape; NGP_FUSED=0 forces the unfused
-    # encode-kernel + XLA-MLP chain (A/B + fallback knob)
-    L = len(layout.scales)
-    fusable = (
-        not oracle
-        and _os.environ.get("NGP_FUSED", "1") == "1"
-        and 8 * L <= 128
-        and all(layout.offsets[l + 1] - layout.offsets[l] <= max(
-            mxu_max_rows, 512) for l in range(L))
-        and net.use_viewdirs
-        and getattr(net.fine, "view_depth", None) == 1
-        and all(0 <= s < net.fine.depth for s in net.fine.skips)
-    )
-    fused = {}
-    fused_bf16 = _os.environ.get("NGP_FUSED_BF16", "0") == "1"
-    fused_cgather = _os.environ.get("NGP_FUSED_CGATHER", "1") == "1"
-    if fusable:
-        for name in ("fine", "coarse"):
-            mlp = getattr(net, name)
-            fused[name] = extract_mlp_weights(
-                params["params"][name], 2 * L, mlp.depth,
-                tuple(mlp.skips), mlp.view_depth)
-
-    def run_mlp(module, pts_feat, view_feat, model):
-        mlp = module.fine if model == "fine" else module.coarse
-        return mlp(pts_feat, view_feat)
-
-    def apply_fn(_params, pts, viewdirs, model):
-        shape = pts.shape[:-1]
-        x = pts.reshape(-1, 3)
-        if bounds is not None:
-            x = normalize_to_unit(x, bounds)
-        x = jnp.clip(x, 0.0, 1.0)
-        if fused:
-            sh = None
-            if viewdirs is not None:
-                # SH per RAY, broadcast features per point (16 lanes)
-                vf = dir_enc(viewdirs.reshape(-1, 3))
-                vshape = viewdirs.shape[:-1]
-                sh = jnp.broadcast_to(
-                    vf.reshape(vshape + (vf.shape[-1],)),
-                    shape + (vf.shape[-1],)).reshape(-1, vf.shape[-1])
-            ops, meta = fused[model if model == "fine" else "coarse"]
-            raw = fused_ngp_eval(layout, meta, packed, ops, x, sh,
-                                 blk=blk, mlp_bf16=fused_bf16,
-                                 combined_gather=fused_cgather)
-            return raw.reshape(*shape, 4)
-        if oracle:
-            feat = hk.brick_encode_reference(
-                layout, jnp.asarray(table, jnp.float32), x)
-        else:
-            feat = brick_encode_eval(layout, packed, x,
-                                     mxu_max_rows=mxu_max_rows, blk=blk)
-        view_feat = None
-        if net.use_viewdirs and viewdirs is not None:
-            dirs = jnp.broadcast_to(viewdirs, shape + (viewdirs.shape[-1],))
-            view_feat = dir_enc(dirs.reshape(-1, 3))
-        raw = net.apply(params, feat, view_feat, model, method=run_mlp)
-        return raw.reshape(*shape, 4)
-
-    return apply_fn
+def select_coarse_samples(t_cand, occ, M: int):
+    """Keep ``M`` of the depth-ordered candidates ``t_cand`` (c, C) with
+    coverage: occupied-first (ascending depth within each class),
+    striding evenly through the occupied pool — a plain top-M would
+    cluster at the span front whenever more than M candidates are
+    occupied. Rank-by-cumsum IS that stable two-class sort permutation,
+    so no lax.sort is needed: occupied candidate k gets rank
+    cumsum(occ)[k], unoccupied ranks follow after n_occ. Returns the
+    selected depths (c, M), ascending; each is a candidate taken by a
+    gather, so exactly."""
+    occ_i = occ.astype(jnp.int32)
+    n_occ = occ_i.sum(-1)                                         # (c,)
+    rank = jnp.where(occ, jnp.cumsum(occ_i, axis=-1),
+                     n_occ[:, None] + jnp.cumsum(1 - occ_i, axis=-1))
+    pool = jnp.maximum(n_occ, M)
+    j = jnp.arange(M, dtype=jnp.int32)
+    pos = (j[None, :] * pool[:, None]) // M + 1                   # (c, M)
+    # ranks are a permutation of 1..C and pos <= C, so each pos names
+    # exactly one candidate
+    k_sel = jnp.argmax(pos[..., None] == rank[:, None, :], axis=-1)
+    return jax.lax.sort(jnp.take_along_axis(t_cand, k_sel, axis=-1),
+                        dimension=-1)
 
 
 def _gap_capped_weights(sigma, t, span, n_candidates, act, cap_mult=2.0):
@@ -222,7 +142,7 @@ def make_ngp_frame_renderer(
     1+2*dilate cells and cannot be stepped over). ``n_fine2`` > 0 adds an optional second importance
     round (see module doc). ``mesh``: a data Mesh shards each frame WITHIN the pose
     (ray tensors P('data'), params replicated) so one frame uses every
-    chip. ``stage`` ("probe"|"coarse"|"full") truncates the pipeline for
+    device. ``stage`` ("probe"|"coarse"|"full") truncates the pipeline for
     strip-profiling (scripts/probe_frame_parts.py): "probe" stops after
     span probe + active compaction, "coarse" after the coarse composite.
     ``select_occupancy``: optional second ``(grid, bbox[, dilate])`` used
@@ -234,8 +154,8 @@ def make_ngp_frame_renderer(
     work). Defaults to the probe grid.
     """
     if n_coarse > n_candidates:
-        # select_chunk ranks candidates; with n_coarse > n_candidates the
-        # one-hot select rows go all-zero and t silently collapses to 0.0
+        # select_coarse_samples ranks candidates; with n_coarse >
+        # n_candidates some ranks name no candidate
         raise ValueError(
             f"n_coarse={n_coarse} must be <= n_candidates={n_candidates}")
     n = H * W
@@ -308,23 +228,9 @@ def make_ngp_frame_renderer(
         cst = lambda x, *spec: x
 
     def fn(params, c2w):
-        us, vs = jnp.meshgrid(jnp.arange(W, dtype=jnp.float32),
-                              jnp.arange(H, dtype=jnp.float32))
-        u = us.ravel()
-        v = vs.ravel()
-        dirs = jnp.stack([(u - W / 2.0) / focal, -(v - H / 2.0) / focal,
-                          -jnp.ones_like(u)], -1)
-        # Full f32 precision: the TPU default (bf16 inputs) perturbs ray
-        # directions by ~1e-3 relative, which at far~6 world units is
-        # several finest-level hash cells — visible as surface speckle
-        # vs the host-f32 dense path.
-        rays_d = jnp.einsum("nc,dc->nd", dirs, c2w[:3, :3],
-                            precision=jax.lax.Precision.HIGHEST)
-        rays_d = cst(
-            rays_d / jnp.linalg.norm(rays_d, axis=-1, keepdims=True),
-            "data")
-        rays_o = cst(jnp.broadcast_to(c2w[:3, 3], rays_d.shape) + 0.0,
-                     "data")
+        rays_o, rays_d = camera_rays(H, W, focal, c2w)
+        rays_d = cst(rays_d, "data")
+        rays_o = cst(rays_o + 0.0, "data")
 
         # --- span probe on the subsampled lattice -----------------------
         t_probe = jnp.linspace(s.near, s.far, n_probe)
@@ -376,27 +282,8 @@ def make_ngp_frame_renderer(
             t_cand = te[:, None] + span[:, None] * uu[None, :]   # (c, C)
             p_cand = ro[:, None] + rd[:, None] * t_cand[..., None]
             occ_c = points_occupied(p_cand, sel_grid, sel_bbox)
-            # keep n_coarse candidates with COVERAGE: occupied-first
-            # (ascending depth within each class), striding evenly
-            # through the occupied pool — a plain top-M would cluster at
-            # the span front whenever more than M candidates are
-            # occupied. Rank-by-cumsum IS that stable two-class sort
-            # permutation (candidates are already depth-ordered), so no
-            # lax.sort is needed: occupied candidate k gets rank
-            # cumsum(occ)[k], unoccupied ranks follow after n_occ.
-            occ_i = occ_c.astype(jnp.int32)
-            n_occd = occ_i.sum(-1)                                # (c,)
-            rank = jnp.where(
-                occ_c, jnp.cumsum(occ_i, axis=-1),
-                n_occd[:, None] + jnp.cumsum(1 - occ_i, axis=-1))
-            pool = jnp.maximum(n_occd, M)
-            j = jnp.arange(M, dtype=jnp.int32)
-            pos = (j[None, :] * pool[:, None]) // M + 1           # (c, M)
-            onehot = (pos[..., None] == rank[:, None, :]).astype(
-                t_cand.dtype)
-            t_sel = jnp.einsum("cmk,ck->cm", onehot, t_cand)
-            t_c = jax.lax.sort(t_sel, dimension=-1)               # (c, M)
-            return t_c, n_occd
+            t_c = select_coarse_samples(t_cand, occ_c, M)         # (c, M)
+            return t_c, occ_c.sum(-1)
 
         t_c1, n_occ = jax.lax.map(
             select_chunk,

@@ -1,4 +1,4 @@
-"""Occupancy grid: instant-ngp-style empty-space skipping, TPU-native.
+"""Occupancy grid: instant-ngp-style empty-space skipping, static shapes.
 
 The reference's ESS/ERT (volume_renderer.py:132-244) derives validity
 masks from the CURRENT batch's coarse densities — every ray still pays
@@ -88,7 +88,7 @@ def ray_spans(rays_o, rays_d, t_probe, grid, bbox, margin: float = 0.0):
     """Per-ray occupied span [t_enter, t_exit] from grid probes.
 
     The instant-ngp raymarcher advances rays only through occupied
-    cells; the TPU-native static-shape analog bounds each ray's sample
+    cells; the static-shape analog bounds each ray's sample
     range to the first..last occupied probe (one dense probe pass, then
     masked min/max reductions — no data-dependent loops).
 

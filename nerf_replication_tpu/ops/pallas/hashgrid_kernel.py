@@ -1,46 +1,32 @@
-"""Bricked multi-resolution hash-grid encoder as Pallas TPU kernels.
+"""Bricked multi-resolution hash-grid encode: plain jnp and Pallas Triton.
 
-Covers the reference's CUDA hash encoder capability
-(src/models/encoding/hashencoder/src/hashencoder.cu:78-271) with a
-TPU-native data layout. XLA's TPU gather costs a fixed ~5 ns/index
-(scalar-serialized) and its scatter-add backward is worse, so the CUDA
-kernel's per-corner gather/atomicAdd design cannot be translated — at
-8 corners x L levels per point it is ~50x too slow on TPU
-(scripts/probe_gather.py, scripts/probe_ngp_parts.py).
+Covers the reference's CUDA hash encoder (hashencoder.cu:78-271) for the
+bricked parameter layout that the NGP configs and checkpoints use:
 
-TPU-first design instead:
-
-* Each level's table stores BRICKS of 4^3 cells = 5^3 = 125 vertices.
-  A brick is ONE table row of 256 lanes: feature 0 of vertex v at lane
-  v, feature 1 at lane 128+v (v = vx*25 + vy*5 + vz in [0,124]).
-* Per (point, level) the kernel materializes the point's brick row in
-  VMEM, then extracts the 8 trilinear corners with a vectorized
-  in-register lane gather (tpu.dynamic_gather via take_along_axis) and
-  reduces on the VPU. Two strategies fetch the rows:
-  - ``mxu`` (small levels): one-hot(bid) @ table on the MXU in bf16 —
-    an embedding lookup as matmul; the backward is the transposed
-    matmul, so there is no scatter at all. NOTE: the backward casts the
-    per-point contribution rows to bfloat16 before that transposed
-    matmul, so mxu-level TABLE GRADIENTS are quantized to bf16 mantissa
-    per block (tests tolerate 5e-2 relative error; training quality is
-    unaffected in practice — Adam noise dominates). Scalar-strategy
-    levels accumulate gradients in f32.
-  - ``scalar`` (large levels): one dynamic-row copy per point (~10 ns,
-    scripts/probe_pallas_gather.py) with brick ids scalar-read from
-    SMEM; the backward accumulates per-point 256-lane contribution
-    rows with serial dynamic-row read-modify-writes — race-free
-    because the kernel is single-threaded per chip (the CUDA kernel
-    needs atomicAdd, hashencoder.cu:254-269).
+* Each level's table stores BRICKS of 4^3 cells = 5^3 = 125 vertices. A
+  brick is ONE table row of 256 floats: feature 0 of vertex v at column
+  v, feature 1 at column 128+v (v = vx*25 + vy*5 + vz in [0,124]).
 * Coarse levels store bricks densely; fine levels hash the BRICK
-  coordinate with the instant-ngp XOR primes (hashencoder.cu:37-52).
-  Brick-granular hashing is the TPU-native analog of instant-ngp's
-  vertex hashing: collisions alias 4^3-cell blocks instead of single
-  vertices, with a comparable effective-capacity regime.
+  coordinate with the instant-ngp XOR primes (hashencoder.cu:37-52), so
+  collisions alias 4^3-cell blocks instead of single vertices.
 
-Interpolation inside a brick is mathematically identical to instant-ngp
-trilinear interpolation; only the hashing granularity differs (and only
-on levels that hash at all). The vertex-exact XLA formulation remains
-available as ``HashGridEncoder(backend="xla")`` for parity tests.
+Interpolation inside a brick is instant-ngp trilinear interpolation.
+Per (point, level) the encode computes the brick row and the 8 in-brick
+corner columns, gathers 16 scalars from the flattened ``(n_rows*256,)``
+table and interpolates. Two implementations share that arithmetic
+(:func:`_level_corners`):
+
+* :func:`brick_encode_jnp` — plain jnp: XLA's gather forward and, by
+  autodiff, XLA's scatter-add backward.
+* :func:`brick_encode_triton` — the CUDA kernel's design through Pallas
+  Triton: one program per block of points gathers the corners of every
+  level and interpolates; the backward recomputes the corners and
+  ``atomic_add``-s the weighted upstream gradient into an f32 table
+  gradient (hashencoder.cu:201-271).
+
+:func:`brick_encode` picks one from ``jax.default_backend()``. The
+vertex-exact formulation stays available as
+``HashGridEncoder(backend="xla")``.
 """
 
 from __future__ import annotations
@@ -52,30 +38,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 BRICK = 4          # cells per brick side
 BW = BRICK + 1     # vertices per brick side
-BV = BW ** 3       # vertices per brick (125)
-ROW = 256          # lanes per table row: [f0 x 125 pad | f1 x 125 pad]
-BLK = 512          # points per kernel block (mixed-strategy kernels)
-BLK_MXU = 1024     # block when every level uses the mxu strategy (no
-                   # SMEM ids / f32 table resident -> room for bigger
-                   # one-hot matmul tiles)
-MXU_MAX_ROWS = 4096   # levels at most this many rows use the mxu strategy
+ROW = 256          # floats per table row: [f0 x 125 pad | f1 x 125 pad]
+BLOCK = 128        # points per Triton program (a power of two)
 _PRIMES = (1, 2654435761, 805459861)
-
-# the backward accumulates dtab across blocks -> 'arbitrary'; the
-# forward has no cross-block state -> 'parallel' (pipelined block DMAs)
-_CP = pltpu.CompilerParams(dimension_semantics=("arbitrary",),
-                           vmem_limit_bytes=110 * 2 ** 20)
-_CP_FWD = pltpu.CompilerParams(dimension_semantics=("parallel",),
-                               vmem_limit_bytes=110 * 2 ** 20)
-
-
-def _interpret() -> bool:
-    """Run in interpret mode off-TPU (CPU test suite)."""
-    return jax.default_backend() != "tpu"
+_CP = plgpu.CompilerParams(num_warps=4, num_stages=1)
 
 
 class BrickLayout(NamedTuple):
@@ -101,7 +71,7 @@ def make_brick_layout(n_levels: int, base_resolution: int,
         bs = -(-res // BRICK)
         dense = bs ** 3
         n = min(dense, cap)
-        n = int(np.ceil(n / 128) * 128)  # 128-align rows: mxu-friendly
+        n = int(np.ceil(n / 128) * 128)  # 128-aligned rows per level
         scales.append(res)
         bsides.append(bs)
         use_hash.append(dense > cap)
@@ -110,273 +80,161 @@ def make_brick_layout(n_levels: int, base_resolution: int,
                        tuple(use_hash), offsets[-1])
 
 
-def _strategies(layout):
-    return tuple(
-        "mxu" if layout.offsets[l + 1] - layout.offsets[l] <= MXU_MAX_ROWS
-        else "scalar"
-        for l in range(len(layout.scales)))
+def _brick_id(layout: BrickLayout, l: int, bc):
+    """Per-component brick coords (3 x (N,) int32) -> LOCAL brick id."""
+    if layout.use_hash[l]:
+        cap = layout.offsets[l + 1] - layout.offsets[l]
+        cap_pow2 = 1 << int(np.floor(np.log2(cap)))
+        h = bc[0].astype(jnp.uint32)
+        h = h ^ (bc[1].astype(jnp.uint32) * jnp.uint32(_PRIMES[1]))
+        h = h ^ (bc[2].astype(jnp.uint32) * jnp.uint32(_PRIMES[2]))
+        return (h & jnp.uint32(cap_pow2 - 1)).astype(jnp.int32)
+    bs = layout.bsides[l]
+    return (bc[0] * bs + bc[1]) * bs + bc[2]
 
 
-def compute_brick_ids(layout: BrickLayout, x: jnp.ndarray) -> jnp.ndarray:
-    """x (N, 3) in [0,1] -> per-level LOCAL brick ids (N, L) int32.
-
-    Computed per COMPONENT on (N,) vectors: a materialized (N, 3) or
-    (N, 1) temp gets the TPU (8, 128) tiled layout, which pads the
-    3-/1-wide minor dim to 128 lanes — 42-128x HBM expansion (at
-    4.48M points that is 2.14G per temp; 14 such temps OOMed a 16G
-    v5e). Rank-1 temps tile on the lane dim directly and stay at
-    byte size.
-    """
-    xs = [x[:, a] for a in range(3)]
-    ids = []
-    for l, res in enumerate(layout.scales):
-        bs = layout.bsides[l]
-        bc = [jnp.clip(jnp.floor(xa * res).astype(jnp.int32), 0, res - 1)
-              // BRICK for xa in xs]                          # 3 x (N,)
-        if layout.use_hash[l]:
-            cap = layout.offsets[l + 1] - layout.offsets[l]
-            cap_pow2 = 1 << int(np.floor(np.log2(cap)))
-            h = bc[0].astype(jnp.uint32)
-            h = h ^ (bc[1].astype(jnp.uint32) * jnp.uint32(_PRIMES[1]))
-            h = h ^ (bc[2].astype(jnp.uint32) * jnp.uint32(_PRIMES[2]))
-            bid = (h % jnp.uint32(cap_pow2)).astype(jnp.int32)
-        else:
-            bid = (bc[0] * bs + bc[1]) * bs + bc[2]
-        ids.append(bid)
-    return jnp.stack(ids, axis=-1)
-
-
-def _level_geometry(pts_x, pts_y, pts_z, res, lane):
-    """VPU math shared by fwd/bwd kernels: per-corner lane index and
-    trilinear weight for one level. Inputs (B, 1); lane (B, 128) iota.
-    Returns lane_idx (B, 128) int32, weights (B, 128) f32 — valid in
-    lanes 0..7, zero elsewhere."""
-    cmask = lane < 8
-    dxv = (lane >> 2) & 1
-    dyv = (lane >> 1) & 1
-    dzv = lane & 1
-    fr = []
-    loc = []
-    for p in (pts_x, pts_y, pts_z):
+def _level_corners(layout: BrickLayout, l: int, px, py, pz):
+    """Coordinates (B,) in [0,1] -> flat table index of feature 0 of the 8
+    trilinear corners (B, 8) int32 and their weights (B, 8) f32. Corner
+    c has offsets (c>>2 & 1, c>>1 & 1, c & 1). Shared by the jnp encode
+    and both Triton kernels."""
+    res = layout.scales[l]
+    cells, fracs = [], []
+    for p in (px, py, pz):
         pos = p * res
         cell = jnp.clip(jnp.floor(pos), 0.0, res - 1.0)
-        fr.append(pos - cell)                       # (B, 1) fraction
-        ci = cell.astype(jnp.int32)
-        loc.append(ci & (BRICK - 1))                # (B, 1) in-brick cell
-    li = ((loc[0] + dxv) * (BW * BW) + (loc[1] + dyv) * BW + (loc[2] + dzv))
-    w = (jnp.where(dxv == 1, fr[0], 1.0 - fr[0])
-         * jnp.where(dyv == 1, fr[1], 1.0 - fr[1])
-         * jnp.where(dzv == 1, fr[2], 1.0 - fr[2]))
-    li = jnp.where(cmask, li, 0)
-    w = jnp.where(cmask, w.astype(jnp.float32), 0.0)
-    return li, w
+        fracs.append(pos - cell)
+        cells.append(cell.astype(jnp.int32))
+    row = layout.offsets[l] + _brick_id(
+        layout, l, [c >> 2 for c in cells])           # // BRICK
+    loc = [c & (BRICK - 1) for c in cells]
+    corner = jax.lax.broadcasted_iota(jnp.int32, (1, 8), 1)
+    d = [(corner >> 2) & 1, (corner >> 1) & 1, corner & 1]
+    v = ((loc[0][:, None] + d[0]) * (BW * BW)
+         + (loc[1][:, None] + d[1]) * BW + (loc[2][:, None] + d[2]))
+    w = None
+    for a in range(3):
+        f = fracs[a][:, None]
+        wa = jnp.where(d[a] == 1, f, 1.0 - f)
+        w = wa if w is None else w * wa
+    return row[:, None] * ROW + v, w
 
 
-def _onehot(bid_col, n_rows, blk):
-    """bid (B, 1) int32 -> one-hot (B, n_rows) bf16."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (blk, n_rows), 1)
-    return (r == bid_col).astype(jnp.bfloat16)
+# -- plain jnp -----------------------------------------------------------------
+
+def brick_encode_jnp(layout: BrickLayout, table, x):
+    """x (N, 3) in [0,1], table (n_rows, 256) -> (N, 2L) features; a
+    gather of the 16 corner scalars per (point, level)."""
+    flat = table.astype(jnp.float32).reshape(-1)
+    x = x.astype(jnp.float32)
+    feats = []
+    for l in range(len(layout.scales)):
+        idx, w = _level_corners(layout, l, x[:, 0], x[:, 1], x[:, 2])
+        for f in range(2):
+            vals = flat.at[idx + f * 128].get(mode="promise_in_bounds")
+            feats.append(jnp.sum(w * vals, axis=-1))
+    return jnp.stack(feats, axis=-1)
 
 
-def _fwd_kernel(layout, blk, *refs):
-    strategies = _strategies(layout)
-    mixed = "scalar" in strategies
-    if mixed:
-        bidv_ref, bids_ref, pts_ref, table_ref, tbf_ref, out_ref, \
-            buf_ref = refs
-    else:
-        bidv_ref, pts_ref, tbf_ref, out_ref, buf_ref = refs
-    lane = jax.lax.broadcasted_iota(jnp.int32, (blk, 128), 1)
-    px = pts_ref[:, 0:1]
-    py = pts_ref[:, 1:2]
-    pz = pts_ref[:, 2:3]
-    for l, res in enumerate(layout.scales):
-        o = layout.offsets[l]
-        nl = layout.offsets[l + 1] - o
-        if strategies[l] == "mxu":
-            oh = _onehot(bidv_ref[:, l:l + 1], nl, blk)
-            rows = jax.lax.dot_general(
-                oh, tbf_ref[o:o + nl, :], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            buf_ref[:] = rows
-        else:
-            def copy(i, _):
-                buf_ref[pl.ds(i, 1), :] = \
-                    table_ref[pl.ds(o + bids_ref[i, l], 1), :]
-                return 0
-            jax.lax.fori_loop(0, blk, copy, 0)
-        li, w = _level_geometry(px, py, pz, res, lane)
-        f0 = jnp.take_along_axis(buf_ref[:, :128], li, axis=1)
-        f1 = jnp.take_along_axis(buf_ref[:, 128:], li, axis=1)
-        out_ref[:, 2 * l:2 * l + 1] = jnp.sum(w * f0, axis=1, keepdims=True)
-        out_ref[:, 2 * l + 1:2 * l + 2] = jnp.sum(w * f1, axis=1,
-                                                  keepdims=True)
+# -- Pallas Triton -------------------------------------------------------------
+
+def _fwd_kernel(layout, npad, x_ref, tab_ref, out_ref):
+    start = pl.multiple_of(pl.program_id(0) * BLOCK, BLOCK)
+    px, py, pz = (x_ref[pl.ds(a * npad + start, BLOCK)] for a in range(3))
+    for l in range(len(layout.scales)):
+        idx, w = _level_corners(layout, l, px, py, pz)
+        for f in range(2):
+            vals = tab_ref[idx + f * 128]
+            out_ref[pl.ds((2 * l + f) * npad + start, BLOCK)] = jnp.sum(
+                w * vals, axis=1)
 
 
-def _bwd_kernel(layout, blk, *refs):
-    strategies = _strategies(layout)
-    mixed = "scalar" in strategies
-    if mixed:
-        bidv_ref, bids_ref, pts_ref, g_ref, dtab_ref, contrib_ref = refs
-    else:
-        bidv_ref, pts_ref, g_ref, dtab_ref, contrib_ref = refs
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        dtab_ref[:] = jnp.zeros_like(dtab_ref)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (blk, 128), 1)
-    px = pts_ref[:, 0:1]
-    py = pts_ref[:, 1:2]
-    pz = pts_ref[:, 2:3]
-    for l, res in enumerate(layout.scales):
-        o = layout.offsets[l]
-        nl = layout.offsets[l + 1] - o
-        li, w = _level_geometry(px, py, pz, res, lane)
-        g0 = g_ref[:, 2 * l:2 * l + 1]
-        g1 = g_ref[:, 2 * l + 1:2 * l + 2]
-        u0 = w * g0                                  # (B, 128) lanes 0..7
-        u1 = w * g1
-        # scatter the 8 per-corner updates into brick-lane positions:
-        # contrib[:, v] = sum_c (li[:, c] == v) * u[:, c]
-        c0 = jnp.zeros((blk, 128), jnp.float32)
-        c1 = jnp.zeros((blk, 128), jnp.float32)
-        for c in range(8):
-            lc = li[:, c:c + 1]                      # (B, 1)
-            m = (lane == lc).astype(jnp.float32)
-            c0 = c0 + m * u0[:, c:c + 1]
-            c1 = c1 + m * u1[:, c:c + 1]
-        contrib = jnp.concatenate([c0, c1], axis=1)  # (B, 256)
-        if strategies[l] == "mxu":
-            oh = _onehot(bidv_ref[:, l:l + 1], nl, blk)
-            upd = jax.lax.dot_general(
-                oh, contrib.astype(jnp.bfloat16), (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)  # (nl, 256)
-            dtab_ref[o:o + nl, :] = dtab_ref[o:o + nl, :] + upd
-        else:
-            contrib_ref[:] = contrib
-
-            def accum(i, _):
-                row = o + bids_ref[i, l]
-                dtab_ref[pl.ds(row, 1), :] = (
-                    dtab_ref[pl.ds(row, 1), :]
-                    + contrib_ref[pl.ds(i, 1), :])
-                return 0
-            jax.lax.fori_loop(0, blk, accum, 0)
+def _bwd_kernel(layout, npad, interpret, x_ref, g_ref, _zero_ref, dtab_ref):
+    start = pl.multiple_of(pl.program_id(0) * BLOCK, BLOCK)
+    px, py, pz = (x_ref[pl.ds(a * npad + start, BLOCK)] for a in range(3))
+    for l in range(len(layout.scales)):
+        idx, w = _level_corners(layout, l, px, py, pz)
+        for f in range(2):
+            g = g_ref[pl.ds((2 * l + f) * npad + start, BLOCK)]
+            if interpret:
+                # the interpreter discharges atomic_add as a gather plus a
+                # scatter-SET, which keeps one of several equal indices;
+                # a scatter-add of the same indices and values is the
+                # atomic's semantics
+                dtab_ref[...] = dtab_ref[...].at[idx + f * 128].add(
+                    w * g[:, None])
+            else:
+                plgpu.atomic_add(dtab_ref, idx + f * 128, w * g[:, None])
 
 
-def _blk(layout) -> int:
-    return BLK if "scalar" in _strategies(layout) else BLK_MXU
+def _pad_t(a, npad):
+    """(N, C) -> column-major flat (C * npad,) f32, zero-padded rows."""
+    a = a.astype(jnp.float32)
+    return jnp.pad(a.T, ((0, 0), (0, npad - a.shape[0]))).reshape(-1)
 
 
-def _pad_pts(x, blk):
-    n = x.shape[0]
-    npad = -(-n // blk) * blk
-    pts = jnp.zeros((npad, 8), jnp.float32).at[:n, :3].set(
-        x.astype(jnp.float32))
-    return pts, npad
-
-
-def _specs(layout, L, blk):
-    """Input specs for (ids..., pts): mixed-strategy kernels also carry
-    an SMEM copy of the ids for the scalar copy/RMW loops."""
-    specs = [pl.BlockSpec((blk, L), lambda i: (i, 0))]
-    if "scalar" in _strategies(layout):
-        specs.append(pl.BlockSpec((blk, L), lambda i: (i, 0),
-                                  memory_space=pltpu.SMEM))
-    specs.append(pl.BlockSpec((blk, 8), lambda i: (i, 0)))
-    return specs
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0,))
-def brick_hash_encode(layout: BrickLayout, table, x):
-    """x (N, 3) in [0,1], table (n_rows, 256) -> (N, 2L) features."""
-    return _brick_fwd_impl(layout, table, x)
-
-
-def _brick_fwd_impl(layout, table, x):
-    L = len(layout.scales)
-    n = x.shape[0]
-    blk = _blk(layout)
-    mixed = "scalar" in _strategies(layout)
-    pts, npad = _pad_pts(x, blk)
-    bid = compute_brick_ids(layout, pts[:, :3])
-    table = table.astype(jnp.float32)
-    table_specs = [pl.BlockSpec((layout.n_rows, ROW), lambda i: (0, 0))]
-    args = [bid, pts, table.astype(jnp.bfloat16)]
-    if mixed:
-        table_specs.insert(0, pl.BlockSpec((layout.n_rows, ROW),
-                                           lambda i: (0, 0)))
-        args = [bid, bid, pts, table, table.astype(jnp.bfloat16)]
+def _triton_fwd(layout, table, x, interpret=False):
+    n, L = x.shape[0], len(layout.scales)
+    npad = -(-n // BLOCK) * BLOCK
     out = pl.pallas_call(
-        partial(_fwd_kernel, layout, blk),
-        grid=(npad // blk,),
-        in_specs=_specs(layout, L, blk) + table_specs,
-        out_specs=pl.BlockSpec((blk, 2 * L), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((npad, 2 * L), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((blk, ROW), jnp.float32)],
-        compiler_params=_CP_FWD,
-        interpret=_interpret(),
-    )(*args)
-    return out[:n]
-
-
-def _brick_fwd(layout, table, x):
-    return _brick_fwd_impl(layout, table, x), (table, x)
-
-
-def _brick_bwd(layout, res, g):
-    table, x = res
-    L = len(layout.scales)
-    n = x.shape[0]
-    blk = _blk(layout)
-    mixed = "scalar" in _strategies(layout)
-    pts, npad = _pad_pts(x, blk)
-    bid = compute_brick_ids(layout, pts[:, :3])
-    gpad = jnp.zeros((npad, 2 * L), jnp.float32).at[:n].set(
-        g.astype(jnp.float32))
-    args = ([bid, bid, pts, gpad] if mixed else [bid, pts, gpad])
-    dtab = pl.pallas_call(
-        partial(_bwd_kernel, layout, blk),
-        grid=(npad // blk,),
-        in_specs=_specs(layout, L, blk) + [
-            pl.BlockSpec((blk, 2 * L), lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((layout.n_rows, ROW), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((layout.n_rows, ROW), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((blk, ROW), jnp.float32)],
+        partial(_fwd_kernel, layout, npad),
+        out_shape=jax.ShapeDtypeStruct((2 * L * npad,), jnp.float32),
+        grid=(npad // BLOCK,),
         compiler_params=_CP,
-        interpret=_interpret(),
-    )(*args)
+        interpret=interpret,
+        name="brick_encode_fwd",
+    )(_pad_t(x, npad), table.astype(jnp.float32).reshape(-1))
+    return out.reshape(2 * L, npad)[:, :n].T
+
+
+def _triton_bwd(layout, x, g, interpret=False):
+    """Table gradient (n_rows, 256) f32 of the encode at x for cotangent g."""
+    n = x.shape[0]
+    npad = -(-n // BLOCK) * BLOCK
+    dtab = pl.pallas_call(
+        partial(_bwd_kernel, layout, npad, interpret),
+        out_shape=jax.ShapeDtypeStruct((layout.n_rows * ROW,), jnp.float32),
+        grid=(npad // BLOCK,),
+        input_output_aliases={2: 0},
+        compiler_params=_CP,
+        interpret=interpret,
+        name="brick_encode_bwd",
+    )(_pad_t(x, npad), _pad_t(g, npad),
+      jnp.zeros((layout.n_rows * ROW,), jnp.float32))
+    return dtab.reshape(layout.n_rows, ROW)
+
+
+@partial(jax.custom_vjp, nondiff_argnums=(0, 3))
+def brick_encode_triton(layout: BrickLayout, table, x, interpret=False):
+    """Same contract as :func:`brick_encode_jnp`; ``interpret`` runs the
+    kernels in the Pallas interpreter (tests)."""
+    return _triton_fwd(layout, table, x, interpret)
+
+
+def _vjp_fwd(layout, table, x, interpret):
+    return _triton_fwd(layout, table, x, interpret), (table, x)
+
+
+def _vjp_bwd(layout, interpret, res, g):
+    table, x = res
+    dtab = _triton_bwd(layout, x, g, interpret)
     return dtab.astype(table.dtype), jnp.zeros_like(x)
 
 
-brick_hash_encode.defvjp(_brick_fwd, _brick_bwd)
+brick_encode_triton.defvjp(_vjp_fwd, _vjp_bwd)
 
 
-# -- pure-XLA reference of the SAME brick semantics (for tests) ---------------
+def select_encode(platform: str):
+    """The brick encode for a JAX platform name."""
+    if platform == "gpu":
+        return brick_encode_triton
+    if platform == "cpu":
+        return brick_encode_jnp
+    raise NotImplementedError(
+        f"no brick hash-grid encode for platform {platform!r}")
 
-def brick_encode_reference(layout: BrickLayout, table, x):
-    """Numpy/XLA oracle for brick_hash_encode (runs on CPU)."""
-    L = len(layout.scales)
-    n = x.shape[0]
-    bid = compute_brick_ids(layout, x)                       # (N, L) local
-    feats = []
-    for l, res in enumerate(layout.scales):
-        rows = jnp.take(table, layout.offsets[l] + bid[:, l], axis=0)
-        pos = x * res
-        cell = jnp.clip(jnp.floor(pos), 0.0, res - 1.0)
-        frac = pos - cell
-        ci = cell.astype(jnp.int32)
-        loc = ci - (ci // BRICK) * BRICK                     # (N, 3)
-        f0 = f1 = 0.0
-        for c in range(8):
-            d = jnp.array([(c >> 2) & 1, (c >> 1) & 1, c & 1], jnp.int32)
-            v = ((loc[:, 0] + d[0]) * BW * BW + (loc[:, 1] + d[1]) * BW
-                 + (loc[:, 2] + d[2]))
-            w = jnp.prod(jnp.where(d[None] == 1, frac, 1.0 - frac), axis=-1)
-            f0 = f0 + w * jnp.take_along_axis(rows, v[:, None], axis=1)[:, 0]
-            f1 = f1 + w * jnp.take_along_axis(
-                rows, (128 + v)[:, None], axis=1)[:, 0]
-        feats.append(jnp.stack([f0, f1], axis=-1))
-    return jnp.concatenate(feats, axis=-1).reshape(n, 2 * L)
+
+def brick_encode(layout: BrickLayout, table, x):
+    """x (N, 3) in [0,1], table (n_rows, 256) -> (N, 2L) features, by the
+    implementation for the default backend."""
+    return select_encode(jax.default_backend())(layout, table, x)

@@ -1,12 +1,13 @@
 """Device mesh + sharding utilities.
 
-TPU-native replacement for the reference's distributed stack
+Replacement for the reference's distributed stack
 (SURVEY.md §2.3): DistributedDataParallel wrap + NCCL process groups +
 DistributedSampler (reference trainer.py:14-21, train.py:115-120,
 samplers.py:75-131) become a ``jax.sharding.Mesh`` with a ``data`` axis:
 parameters are replicated, ray batches are sharded along the data axis,
 and the gradient all-reduce is inserted by XLA (the mean over the
-sharded batch) — riding ICI instead of NCCL.
+sharded batch), which XLA hands to NCCL on the GPU. The cards of one
+host are joined all to all, so the mesh is 1-D.
 
 No explicit barriers are needed (XLA program order); host-side
 synchronisation uses process-0 gating (``jax.process_index()``).
@@ -80,7 +81,7 @@ def pad_to_multiple(n: int, k: int) -> int:
 def make_dp_train_step(train_step_fn, mesh: Mesh):
     """Shard a ``(state, batch, key) -> (state, stats)`` step over the data
     axis: state replicated (+donated), batch sharded on its leading dim.
-    XLA turns the global loss mean into a psum over ICI."""
+    XLA turns the global loss mean into an all-reduce."""
     rep = replicated(mesh)
     dat = data_sharded(mesh)
     return jax.jit(

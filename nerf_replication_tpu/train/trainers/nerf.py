@@ -37,9 +37,7 @@ class NetworkWrapper:
         self.settings = RenderSettings.from_cfg(cfg)
         self.renderer = Renderer(net, cfg=cfg, settings=self.settings)
         self.coarse_loss = bool(cfg.get("task_arg", {}).get("coarse_loss", True))
-        # the train-path apply: the differentiable fused Pallas MLP when
-        # cfg.network.use_pallas_mlp_train is set, else net.apply
-        self.apply_fn = self.renderer.train_apply
+        self.apply_fn = self.renderer.apply_fn
 
     # -- functional loss (used inside the jitted train step) -----------------
     def loss_fn(self, params, batch, key, train: bool = True):

@@ -4,8 +4,8 @@ Capability parity with the reference's manual timers
 (src/utils/base_utils.py:11-59 ``perf_timer`` — a CUDA-synchronized
 context timer — plus the renderer's fine-pass wall-time prints and
 run.py's per-view fps): :class:`perf_timer` blocks on device work via
-``jax.block_until_ready``; :func:`trace` wraps ``jax.profiler`` for real
-TPU traces (viewable in TensorBoard/XProf); :func:`device_memory_stats`
+``jax.block_until_ready``; :func:`trace` wraps ``jax.profiler`` for device
+traces (viewable in TensorBoard/XProf); :func:`device_memory_stats`
 replaces ``torch.cuda.max_memory_allocated``.
 """
 
@@ -60,7 +60,7 @@ class perf_timer:
 
 @contextlib.contextmanager
 def trace(log_dir: str = "/tmp/jax_trace"):
-    """jax.profiler trace context (TPU timeline -> TensorBoard)."""
+    """jax.profiler trace context (device timeline -> TensorBoard)."""
     import jax
 
     jax.profiler.start_trace(log_dir)

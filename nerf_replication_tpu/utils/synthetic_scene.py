@@ -34,8 +34,8 @@ DEFAULT_SPHERES = [
 # "hard" benchmark scene: many sharp (high-density) primitives carrying
 # procedural 3-D plaid textures at three octaves (finest period ~0.05
 # world units ≈ 8 px at 800² from the r=4 orbit) — the high-frequency
-# content the flagship quality claim must survive, absent real lego data
-# (the judge-mandated fallback, VERDICT r1 "What's missing" #1).
+# content the flagship quality claim must survive, absent real lego
+# data.
 # Entry: (center, radius, rgb, density, tex_amp, tex_freq, tex_phase)
 HARD_SPHERES = [
     ((0.0, 0.0, -0.15), 0.55, (0.80, 0.25, 0.15), 250.0,
@@ -180,7 +180,7 @@ def render_gt(pose, H, W, focal, spheres=DEFAULT_SPHERES,
               n_samples=384, near=2.0, far=6.0):
     """Exact-ish volume render (dense midpoint quadrature): returns
     rgb (H,W,3), alpha (H,W), depth (H,W). Integration runs as a jitted
-    JAX (CPU/TPU) program — plain numpy is ~20x slower here."""
+    JAX program — plain numpy is ~20x slower here."""
     import jax
     import jax.numpy as jnp
 
@@ -256,7 +256,7 @@ def generate_scene(
     spheres=None,
 ):
     """Write a complete NeRF-synthetic-format scene; returns its dir."""
-    from PIL import Image
+    from .png import write_png
 
     if spheres is None:
         spheres = SCENES.get(scene, DEFAULT_SPHERES)
@@ -282,20 +282,19 @@ def generate_scene(
         for i, pose in enumerate(poses_for(n, sseed)):
             rgb, alpha, depth = render_gt(pose, H, W, focal, spheres)
             rgba = np.concatenate([rgb, alpha[..., None]], -1)
-            img = Image.fromarray(
-                (np.clip(rgba, 0, 1) * 255).astype(np.uint8), "RGBA")
             name = f"r_{i}"
-            img.save(os.path.join(split_dir, name + ".png"))
+            write_png(os.path.join(split_dir, name + ".png"),
+                      (np.clip(rgba, 0, 1) * 255).astype(np.uint8))
             if split == "test":
                 d8 = (np.clip(depth / 8.0, 0, 1) * 255).astype(np.uint8)
-                Image.fromarray(d8, "L").save(
-                    os.path.join(split_dir, name + "_depth_0001.png"))
+                write_png(os.path.join(split_dir, name + "_depth_0001.png"),
+                          d8)
                 rays_o, rays_d = camera_rays(pose, H, W, focal)
                 pts = rays_o + rays_d * depth[..., None]
                 nrm = normal_field(pts)
                 n8 = ((nrm * 0.5 + 0.5) * 255).astype(np.uint8)
-                Image.fromarray(n8, "RGB").save(
-                    os.path.join(split_dir, name + "_normal_0001.png"))
+                write_png(os.path.join(split_dir, name + "_normal_0001.png"),
+                          n8)
             frames.append({
                 "file_path": f"./{split}/{name}",
                 "rotation": 0.0,

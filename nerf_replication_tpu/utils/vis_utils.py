@@ -12,9 +12,10 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
 
 
 def save_image(path: str, img: np.ndarray):
-    from PIL import Image
+    """Write ``img`` (float in [0,1] or uint8) as a PNG file."""
+    from .png import write_png
 
-    Image.fromarray(to_uint8(img) if img.dtype != np.uint8 else img).save(path)
+    write_png(path, to_uint8(img) if img.dtype != np.uint8 else img)
 
 
 def compare_images(gt: np.ndarray, pred: np.ndarray, error_gain: float = 4.0):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Hash-grid (instant-ngp style) training throughput on the probe_ngp
-config — VERDICT r1 task 2 target: >= 20,000 train rays/s/chip.
+config (target: >= 20,000 train rays/s per device).
 
 Prints one JSON line:
   {"metric": "ngp_train_rays_per_sec_per_chip", "value": N,

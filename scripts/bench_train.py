@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Training-throughput benchmark: rays/s/chip on the flagship config
-(BASELINE.md secondary metric "train rays/sec/chip").
+"""Training-throughput benchmark: rays/s per device on the flagship config
+(BASELINE.md secondary metric "train rays/sec/device").
 
 Prints one JSON line:
   {"metric": "train_rays_per_sec_per_chip", "value": N, "unit": "rays/s",

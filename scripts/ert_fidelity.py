@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """Measure segmented-ERT fidelity vs the dense-exact frame renderer on
 the trained flagship checkpoint: renders the same 800x800 frame with
-ert_segments in {1, 2} and reports PSNR / max pixel diff between them
-(numbers in RESULTS_r02.md: 45.2 dB at surv_frac 0.5)."""
+ert_segments in {1, 2} and reports PSNR / max pixel diff between them."""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("BENCH_FRAMES", "1")
@@ -28,7 +27,6 @@ focal = 0.5 * W / np.tan(0.5 * 0.6911112070083618)
 settings = dataclasses.replace(RenderSettings.from_cfg(cfg), ray_chunk=40000,
                                fast_sampling=True, density_activation="softplus")
 renderer = Renderer(net, settings=settings, mesh=None)
-renderer.enable_fused_mlp(params)
 act = density_activation("softplus")
 apply_fn = renderer.apply_fn
 def density_fn(p, pts):

@@ -1,7 +1,6 @@
 """End-to-end colmap2nerf: a synthetic COLMAP binary model round-trips
 through the converter into a transforms.json the Blender loader parses,
-with poses surviving the OpenCV->OpenGL conversion exactly.
-(VERDICT r1 task 9.)"""
+with poses surviving the OpenCV->OpenGL conversion exactly."""
 
 import json
 import os

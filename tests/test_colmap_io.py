@@ -101,7 +101,7 @@ def test_colmap2nerf_pose_conversion(tmp_path):
 
 def test_images_text_zero_observation_image(tmp_path):
     """COLMAP writes an EMPTY POINTS2D line for images with no points;
-    the positional pairing must not desynchronise (ADVICE r1)."""
+    the positional pairing must not desynchronise."""
     cams, imgs = _fixture()
     imgs[5] = Image(5, imgs[2].qvec, np.array([1.0, 2.0, 3.0]), 1,
                     "r_1.png", np.zeros((0, 2)),

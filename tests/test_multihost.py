@@ -1,8 +1,7 @@
 """Multi-HOST (multi-process) training simulation — the reference's
 `cfg.distributed` NCCL path (train.py:115-120) as 2 real CPU processes
 with jax.distributed + Gloo collectives: sharded train steps must match
-single-process math, and host side effects must be process-0-gated.
-(VERDICT r1 task 6.)"""
+single-process math, and host side effects must be process-0-gated."""
 
 import json
 import os

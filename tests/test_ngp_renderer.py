@@ -1,8 +1,7 @@
 """Structural tests for the NGP occupancy-raymarch frame renderer
 (models/nerf/renderer/ngp_renderer.py). Quality-vs-dense is gated on
-real TPU in bench.py; here we verify the static-shape machinery:
-culling, compaction, chunking invariance, and the eval-apply parity
-with the Flax network."""
+the GPU in bench.py and chip_smoke.py; here we verify the static-shape
+machinery: culling, compaction and chunking invariance."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +11,6 @@ import pytest
 from nerf_replication_tpu.config.cfg_node import CN
 from nerf_replication_tpu.models.nerf.network import init_params, make_network
 from nerf_replication_tpu.models.nerf.renderer.ngp_renderer import (
-    make_ngp_eval_apply,
     make_ngp_frame_renderer,
 )
 from nerf_replication_tpu.models.nerf.renderer.volume_renderer import (
@@ -45,33 +43,13 @@ def ngp():
     return net, params
 
 
-def test_eval_apply_matches_network(ngp):
-    """The baked eval apply (eval-encode kernel + XLA MLP) must match
-    net.apply up to bf16 table quantization."""
-    net, params = ngp
-    apply_fn = make_ngp_eval_apply(net, params)
-    assert apply_fn is not None
-    pts = jax.random.uniform(jax.random.key(1), (7, 5, 3), jnp.float32,
-                             -1.0, 1.0)
-    dirs = jax.random.normal(jax.random.key(2), (7, 1, 3))
-    raw_ref = net.apply(params, pts, dirs, model="fine")
-    raw_fast = apply_fn(params, pts, dirs, "fine")
-    assert raw_fast.shape == raw_ref.shape
-    np.testing.assert_allclose(np.asarray(raw_fast), np.asarray(raw_ref),
-                               atol=5e-2, rtol=5e-2)
-
-
-def test_eval_apply_refuses_non_brick():
-    cfg = _tiny_ngp_cfg()
-    cfg.network.xyz_encoder["backend"] = "xla"
-    net = make_network(cfg)
-    params = init_params(net, jax.random.key(0))
-    assert make_ngp_eval_apply(net, params) is None
+def _apply(net):
+    return lambda p, pts, vd, m: net.apply(p, pts, vd, model=m)
 
 
 def _frame_setup(ngp, grid_value, **kw):
     net, params = ngp
-    apply_fn = make_ngp_eval_apply(net, params)
+    apply_fn = _apply(net)
     s = RenderSettings(N_samples=8, N_importance=8, ray_chunk=64,
                        density_activation="softplus")
     grid = np.full((8, 8, 8), grid_value, np.uint8)
@@ -103,7 +81,7 @@ def test_full_grid_all_active_and_chunk_invariant(ngp):
     assert int(stats["coarse_overflow"]) == 0
     # chunking must not change the image (same compaction order per ray)
     net, params2 = ngp
-    apply_fn = make_ngp_eval_apply(net, params2)
+    apply_fn = _apply(net)
     s2 = RenderSettings(N_samples=8, N_importance=8, ray_chunk=32,
                         density_activation="softplus")
     fn2 = make_ngp_frame_renderer(
@@ -123,7 +101,7 @@ def test_uint8_output(ngp):
                                    n_coarse=4, n_fine=4, capacity=0.5)
     # rebuild with uint8 out
     net, _ = ngp
-    apply_fn = make_ngp_eval_apply(net, params)
+    apply_fn = _apply(net)
     s = RenderSettings(N_samples=8, N_importance=8, ray_chunk=64,
                        density_activation="softplus")
     fn8 = make_ngp_frame_renderer(
@@ -138,7 +116,7 @@ def test_uint8_output(ngp):
 
 def test_shallow_dilation_rejected(ngp):
     net, params = ngp
-    apply_fn = make_ngp_eval_apply(net, params)
+    apply_fn = _apply(net)
     s = RenderSettings()
     with pytest.raises(ValueError, match="dilated"):
         make_ngp_frame_renderer(
@@ -158,7 +136,7 @@ def test_mid_coarse_compaction_matches(ngp):
                                    fine_capacity=1.0, probe_sub=1)
     rgb_ref, _ = fn(params, c2w)
     net, _ = ngp
-    apply_fn = make_ngp_eval_apply(net, params)
+    apply_fn = _apply(net)
     s = RenderSettings(N_samples=8, N_importance=8, ray_chunk=32,
                        density_activation="softplus")
     occ = (np.ones((8, 8, 8), np.uint8),
@@ -203,7 +181,7 @@ def test_probe_stride_and_auto_sub(ngp):
                                    fine_capacity=1.0, probe_sub=1)
     rgb_ref, _ = fn(params, c2w)
     net, _ = ngp
-    apply_fn = make_ngp_eval_apply(net, params)
+    apply_fn = _apply(net)
     s = RenderSettings(N_samples=8, N_importance=8, ray_chunk=64,
                        density_activation="softplus")
     occ = (np.ones((8, 8, 8), np.uint8),
@@ -251,6 +229,6 @@ def test_rank_select_matches_sort_oracle():
     rank = np.where(occ, np.cumsum(occ_i, -1),
                     n_occ[:, None] + np.cumsum(1 - occ_i, -1))
     pos1 = (j[None, :] * np.maximum(n_occ, M)[:, None]) // M + 1
-    onehot = (pos1[..., None] == rank[:, None, :]).astype(np.float32)
-    t_new = np.sort(np.einsum("cmk,ck->cm", onehot, t_cand), -1)
+    k_sel = np.argmax(pos1[..., None] == rank[:, None, :], axis=-1)
+    t_new = np.sort(np.take_along_axis(t_cand, k_sel, axis=-1), -1)
     np.testing.assert_array_equal(t_ref, t_new)

@@ -84,9 +84,11 @@ def test_dp_train_step_matches_single_device():
 
 
 def test_dryrun_multichip_entrypoint():
-    import __graft_entry__ as ge
+    """The data-parallel phase of chip_smoke.py (two sharded train steps,
+    sharded eval and frame renders vs one device) on 8 CPU devices."""
+    import chip_smoke
 
-    ge.dryrun_multichip(8)
+    chip_smoke.multi_device_phase(8, tiny=True)
 
 
 def test_sharded_eval_render_matches():
@@ -166,7 +168,7 @@ def test_renderer_eval_dp_default_and_bitwise_equal():
     """The PRODUCT eval path (Renderer.render_rays_batch /
     render_image_fast) shards ray chunks over the mesh by default when
     multiple devices exist, and the sharded image equals the
-    single-device image bitwise (VERDICT r1 task 4)."""
+    single-device image bitwise."""
     from nerf_replication_tpu.config import default_cfg
     from nerf_replication_tpu.models import make_network
     from nerf_replication_tpu.models.nerf.network import init_params
@@ -222,7 +224,7 @@ def test_renderer_eval_dp_default_and_bitwise_equal():
 def test_host_loader_train_path_uses_mesh():
     """Trainer.train (the host-loader parity path) must be data-parallel
     when a mesh is given — reference-shaped (B=1, N, ...) batches shard
-    on the ray axis (VERDICT r1 weak #4)."""
+    on the ray axis."""
     from nerf_replication_tpu.config import default_cfg
     from nerf_replication_tpu.models import make_network
     from nerf_replication_tpu.models.nerf.network import init_params
@@ -275,13 +277,12 @@ def test_host_loader_train_path_uses_mesh():
 
 
 def test_brick_encoder_grads_shard_over_mesh():
-    """Brick (Pallas) hash encoder under the data mesh: table gradients
-    from an 8-way sharded batch must match the single-device grads —
-    the pallas_call runs per-shard and psum handles the reduction."""
+    """Brick hash encoder under the data mesh: table gradients from an
+    8-way sharded batch must match the single-device grads."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from nerf_replication_tpu.ops.pallas.hashgrid_kernel import (
-        brick_hash_encode, make_brick_layout)
+        brick_encode, make_brick_layout)
 
     lay = make_brick_layout(2, 8, 16, log2_bricks=9)
     key = jax.random.key(0)
@@ -289,7 +290,7 @@ def test_brick_encoder_grads_shard_over_mesh():
     x = jax.random.uniform(jax.random.key(1), (64, 3))
 
     def loss(t, xx):
-        return (brick_hash_encode(lay, t, xx) ** 2).sum()
+        return (brick_encode(lay, t, xx) ** 2).sum()
 
     g_single = jax.grad(loss)(table, x)
 
@@ -331,7 +332,7 @@ def _tiny_freq_setup():
 
 
 def test_frame_renderer_sharded_matches_single():
-    """VERDICT r2 task 4: the compacted frame renderer with in/out mesh
+    """The compacted frame renderer with in/out mesh
     shardings must reproduce the single-device frame bitwise-ish."""
     renderer, params, s = _tiny_freq_setup()
     H = W = 8
@@ -365,7 +366,6 @@ def test_ngp_frame_renderer_sharded_matches_single():
         make_network as mk_nerf,
     )
     from nerf_replication_tpu.models.nerf.renderer.ngp_renderer import (
-        make_ngp_eval_apply,
         make_ngp_frame_renderer,
     )
     from nerf_replication_tpu.models.nerf.renderer.volume_renderer import (
@@ -385,7 +385,7 @@ def test_ngp_frame_renderer_sharded_matches_single():
                                           "degree": 2}}})
     net = mk_nerf(cfg)
     params = init_params(net, jax.random.key(0))
-    apply_fn = make_ngp_eval_apply(net, params)
+    apply_fn = lambda p, pts, vd, m: net.apply(p, pts, vd, model=m)
     s = RenderSettings(ray_chunk=32, density_activation="softplus")
     occ = (np.ones((8, 8, 8), np.uint8),
            (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5), 2)

@@ -157,7 +157,7 @@ def test_ops_are_jittable_and_grad_safe():
 
 def test_get_rays_directions_unit_norm():
     """get_rays normalises directions like the reference (blender.py:126)
-    and every other ray generator in the framework (ADVICE r1 medium)."""
+    and every other ray generator in the framework."""
     H = W = 8
     f = 3.0
     K_inv = jnp.linalg.inv(

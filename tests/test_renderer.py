@@ -345,47 +345,3 @@ def test_render_settings_ert_from_cfg():
     assert s.ert_frac == (0.7, 0.5)
     assert s.ert_split == 0.5
     assert hash(s) is not None  # stays jit-static-safe
-
-
-class TestFusedTrainApplyDefault:
-    """use_pallas_mlp_train default "auto" (round-5 ablation decision,
-    result/abl_train_mlp.json): fused train MLP on TPU, XLA apply on
-    every other backend; explicit True/False still win."""
-
-    @pytest.fixture(scope="class")
-    def net(self):
-        from nerf_replication_tpu.config import default_cfg, load_cfg_tree
-        from nerf_replication_tpu.models import make_network
-
-        return make_network(load_cfg_tree("configs/nerf/hard.yaml",
-                                          default_cfg()))
-
-    def _renderer(self, net, flag, backend, monkeypatch):
-        import nerf_replication_tpu.models.nerf.renderer.volume_renderer \
-            as vr
-
-        monkeypatch.setattr(vr.jax, "default_backend", lambda: backend)
-        cfg = {"network": {}} if flag is None else \
-            {"network": {"use_pallas_mlp_train": flag}}
-
-        class D(dict):
-            def get(self, k, d=None):
-                return dict.get(self, k, d)
-
-        return Renderer(net, cfg=D(cfg))
-
-    def test_auto_cpu_uses_xla(self, net, monkeypatch):
-        r = self._renderer(net, None, "cpu", monkeypatch)
-        assert r.train_apply is r.apply_fn
-
-    def test_auto_tpu_uses_fused(self, net, monkeypatch):
-        r = self._renderer(net, None, "tpu", monkeypatch)
-        assert r.train_apply is not r.apply_fn
-
-    def test_explicit_true_wins_on_cpu(self, net, monkeypatch):
-        r = self._renderer(net, True, "cpu", monkeypatch)
-        assert r.train_apply is not r.apply_fn
-
-    def test_explicit_false_wins_on_tpu(self, net, monkeypatch):
-        r = self._renderer(net, False, "tpu", monkeypatch)
-        assert r.train_apply is r.apply_fn

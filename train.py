@@ -9,7 +9,7 @@ validation path (train.py:90-97). ``cfg.distributed`` maps to
 process groups (train.py:115-120); there are no loader worker processes,
 so no ``kill -9`` exit hack (train.py:130).
 
-TPU-native training path: when the dataset exposes ``as_arrays`` the
+Device-resident training path: when the dataset exposes ``as_arrays`` the
 epoch runs as one compiled lax.scan over device-resident data
 (trainers/trainer.py train_device); otherwise the host-loader parity
 loop is used.
@@ -26,8 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 def train(cfg, network):
     import jax
 
-    from nerf_replication_tpu.datasets import DeviceRayPipeline, make_data_loader
+    from nerf_replication_tpu.datasets import make_data_loader
     from nerf_replication_tpu.datasets.make_dataset import make_dataset
+    from nerf_replication_tpu.datasets.pipeline import make_train_pipeline
     from nerf_replication_tpu.evaluators import make_evaluator
     from nerf_replication_tpu.models.nerf.network import init_params
     from nerf_replication_tpu.train import make_recorder, make_trainer
@@ -80,20 +81,10 @@ def train(cfg, network):
             check_params_compat(pre, params)
             state["params"] = pre
 
-    # TPU fast path when the dataset can live on device
+    # device-resident fast path when the dataset can live on device
     pipeline = None
     if hasattr(train_dataset, "as_arrays") and cfg.task != "img_fit":
-        images, poses, K = train_dataset.as_arrays()
-        ta = cfg.task_arg
-        alphas = (train_dataset.alpha_arrays()
-                  if hasattr(train_dataset, "alpha_arrays") else None)
-        pipeline = DeviceRayPipeline(
-            images, poses, K,
-            n_rays=int(ta.get("N_rays", 1024)),
-            precrop_iters=int(ta.get("precrop_iters", 0)),
-            precrop_frac=float(ta.get("precrop_frac", 0.5)),
-            alphas=alphas if bool(ta.get("random_bkgd", False)) else None,
-        )
+        pipeline = make_train_pipeline(cfg, train_dataset)
 
     host_loader = None
     for epoch in range(begin_epoch, cfg.train.epoch):
@@ -145,12 +136,8 @@ def main():
 
     import jax
 
-    from nerf_replication_tpu.utils.compile_cache import (
-        enable_compile_cache,
-        honor_jax_platforms_env,
-    )
+    from nerf_replication_tpu.utils.compile_cache import enable_compile_cache
 
-    honor_jax_platforms_env()
     enable_compile_cache()
     if cfg.distributed:
         jax.distributed.initialize()
